@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Throughput-style example: N concurrent CIF Sorenson streams decoded in
-lockstep on one chip, with optional multi-chip stream sharding.
+lockstep on one device, with optional multi-device stream sharding.
 
 Usage:
     python examples/batched_streams.py [--streams 64] [--frames 12] [--shard]
@@ -30,6 +30,9 @@ def main():
                     help="shard the stream axis over all devices")
     args = ap.parse_args()
 
+    from h263_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from h263_tpu.parallel import BatchedStreamDecoder
     from h263_tpu.testing.encoder import MBSpec, encode_sorenson_picture
     from h263_tpu.types import PictureTypeCode

@@ -24,6 +24,7 @@ import numpy as np
 
 from h263_tpu import DecoderOption, H263Decoder
 from h263_tpu.io.flv import iter_flv_video_tags
+from h263_tpu.utils.compile_cache import enable_compile_cache
 
 
 def write_ppm(path: str, rgba: np.ndarray) -> None:
@@ -89,6 +90,7 @@ def main():
     ap.add_argument("--selftest", action="store_true")
     args = ap.parse_args()
 
+    enable_compile_cache()
     if args.selftest:
         n = decode_flv(_synth_flv(), None, None)
         assert n == 3, n

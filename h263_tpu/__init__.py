@@ -1,10 +1,11 @@
-"""h263_tpu — a TPU-native H.263 (Sorenson Spark) decode framework.
+"""h263_tpu — a batched H.263 (Sorenson Spark) decode framework in JAX.
 
-A ground-up rebuild of the capabilities of ruffle-rs/h263-rs for TPU:
-a serial host entropy front-end emits dense per-frame tensors; dequant,
-IDCT, half-pel motion compensation, deblocking, and BT.601 color conversion
-run as batched XLA/Pallas programs over all macroblocks of many concurrent
-streams.  Output is bit-exact with the reference decoder.
+A ground-up rebuild of the capabilities of ruffle-rs/h263-rs for
+accelerators (an NVIDIA GPU today): a host or on-device entropy front-end
+emits dense per-frame tensors; dequant, IDCT, half-pel motion compensation,
+deblocking, and BT.601 color conversion run as batched XLA programs over
+all macroblocks of many concurrent streams.  Output is bit-exact with the
+reference decoder.
 
 Public surface mirrors the reference crates:
   * H263Decoder.decode_next_picture  — h263::H263State::decode_next_picture

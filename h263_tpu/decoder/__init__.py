@@ -1,4 +1,4 @@
-"""Decoder orchestration: per-stream state machine + TPU reconstruction."""
+"""Decoder orchestration: per-stream state machine + device reconstruction."""
 
 from .picture import DecodedPicture
 from .state import H263Decoder

@@ -7,7 +7,7 @@ whole-picture atomicity — a failed decode leaves reader and state untouched
 (state.rs:119-137).
 
 Two reconstruction backends:
-  * "jax"   — the TPU path: dense tensors go to the jitted XLA program;
+  * "jax"   — the device path: dense tensors go to the jitted XLA program;
               reference planes stay device-resident across frames.
   * "numpy" — the golden scalar-faithful oracle (ops.golden_*), used for
               parity testing and host-only operation.

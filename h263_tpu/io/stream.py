@@ -2,7 +2,7 @@
 
 The reference decodes from any ``std::io::Read`` with incremental
 buffering and commit-frees (reader.rs:15-30, 335-365): bytes are pulled
-as the bit cursor advances, and committed prefixes are released.  The TPU
+as the bit cursor advances, and committed prefixes are released.  The batched
 rebuild keeps complete-frame buffers on the hot path (fixed shapes, one
 host->device transfer per step), so streaming is provided one level up:
 an incremental **frame segmenter** that accumulates arriving bytes,

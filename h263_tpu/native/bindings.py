@@ -1,8 +1,9 @@
 """ctypes bindings + lazy build for the C++ entropy front-end.
 
-The library is built on first use (g++ -O3) into native/build/; the VLC
-table header is generated from vlc_tables.py so both front-ends share one
-source of truth.
+The library is built on first use (g++ -O3 -march=native) into
+native/build/, keyed on its sources and the host (native/buildkey.py); the
+VLC table header is generated from vlc_tables.py so both front-ends share
+one source of truth.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 
+from .buildkey import build_key, is_current, mark_current
 from ..types import (
     BitstreamExhausted,
     H263Error,
@@ -55,7 +57,7 @@ def _pick_build_dir() -> str:
     except OSError:
         pass
     if os.path.exists(os.path.join(d, "libh263entropy.so")):
-        return d  # prebuilt, read-only: loadable even if never rebuildable
+        return d  # prebuilt, read-only: loaded if its stamp fits this host
     base = os.environ.get(
         "XDG_CACHE_HOME", os.path.join(os.path.expanduser("~"), ".cache"))
     return os.path.join(base, "h263_tpu", "build")
@@ -96,7 +98,17 @@ F_MV_RANGE_EXTENDED = 8
 F_PACK_DELTA24 = 16
 
 
-def _build() -> bool:
+_CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-pthread"]
+
+
+def _build(force: bool = False) -> bool:
+    """Make _LIB_PATH a library of the current sources built on this host.
+
+    The stamp next to the library (native/buildkey.py) holds a hash of the
+    source, the generated VLC header, the compile flags and the host CPU;
+    a library with any other stamp — e.g. a build directory copied from
+    another machine, compiled there with -march=native — is rebuilt, and
+    `force` rebuilds unconditionally."""
     tables_h = os.path.join(_DIR, "tables.h")
     src = os.path.join(_DIR, "entropy.cpp")
     vlc_src = os.path.join(os.path.dirname(_DIR), "vlc_tables.py")
@@ -106,14 +118,6 @@ def _build() -> bool:
             os.path.getmtime(p) >= os.path.getmtime(vlc_src))
 
     try:
-        # A prebuilt, up-to-date library is usable even when nothing here
-        # is writable (read-only deploy images without g++).
-        if (os.path.exists(_LIB_PATH)
-                and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(src)
-                and fresh(tables_h)
-                and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(tables_h)):
-            return True
-        os.makedirs(_BUILD_DIR, exist_ok=True)
         if not fresh(tables_h):
             if os.access(_DIR, os.W_OK):
                 from . import gen_tables
@@ -123,35 +127,36 @@ def _build() -> bool:
                 # Read-only install: regenerate in the build dir and
                 # compile a copy of the source from there, so the quoted
                 # include resolves to the fresh header (the including
-                # file's directory is searched first).  copy2 preserves
-                # the source mtime — otherwise every import would see
-                # lib-older-than-src and recompile.
+                # file's directory is searched first).
                 import shutil
 
+                os.makedirs(_BUILD_DIR, exist_ok=True)
                 tables_h = os.path.join(_BUILD_DIR, "tables.h")
                 if not fresh(tables_h):
                     from . import gen_tables
 
                     gen_tables.main(tables_h)
                 src2 = os.path.join(_BUILD_DIR, "entropy.cpp")
-                if (not os.path.exists(src2) or os.path.getmtime(src2)
-                        != os.path.getmtime(src)):
-                    shutil.copy2(src, src2)
+                shutil.copyfile(src, src2)
                 src = src2
-        need = (not os.path.exists(_LIB_PATH)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)
-                or os.path.getmtime(_LIB_PATH) < os.path.getmtime(tables_h))
-        if need:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-pthread", src, "-o", _LIB_PATH],
-                check=True, capture_output=True, cwd=os.path.dirname(src))
+        with open(src, "rb") as f_src, open(tables_h, "rb") as f_tab:
+            key = build_key(f_src.read(), f_tab.read(),
+                            " ".join(_CXX_FLAGS).encode())
+        if not force and is_current(_LIB_PATH, key):
+            return True
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *_CXX_FLAGS, src, "-o", tmp],
+                       check=True, capture_output=True,
+                       cwd=os.path.dirname(src))
+        os.replace(tmp, _LIB_PATH)
+        mark_current(_LIB_PATH, key)
         return True
     except Exception:
         return False
 
 
-def _build_fastcall():
+def _build_fastcall(force: bool = False):
     """Build/load the optional CPython marshalling helper (h263_fastcall).
 
     Returns the module or None; every caller has a ctypes fallback."""
@@ -162,33 +167,43 @@ def _build_fastcall():
     tag = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     path = os.path.join(_BUILD_DIR, "h263_fastcall" + tag)
     try:
-        if (not os.path.exists(path)
-                or os.path.getmtime(path) < os.path.getmtime(src)):
-            include = sysconfig.get_paths()["include"]
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", f"-I{include}",
-                 src, "-o", path],
-                check=True, capture_output=True, cwd=_DIR)
+        include = sysconfig.get_paths()["include"]
+        cmd = ["g++", "-O2", "-shared", "-fPIC", f"-I{include}", src]
+        with open(src, "rb") as f:
+            key = build_key(f.read(), " ".join(cmd).encode())
+        if force or not is_current(path, key):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run([*cmd, "-o", tmp], check=True,
+                           capture_output=True, cwd=_DIR)
+            os.replace(tmp, path)
+            mark_current(path, key)
         spec = importlib.util.spec_from_file_location("h263_fastcall", path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         return mod
     except Exception:
         # The ctypes fallback costs ~170 us/step at n=256; make losing the
-        # fast path observable instead of silent (ADVICE r2).
+        # fast path observable instead of silent.
         from ..utils.trace import incr
 
         incr("fastcall_build_failed")
         return None
 
 
-def ensure_built() -> bool:
-    """Build/load the native library; returns availability."""
+def ensure_built(force_rebuild: bool = False) -> bool:
+    """Build/load the native library; returns availability.
+
+    `force_rebuild` compiles the library (and the fastcall helper) from
+    the sources on this host even if a current build exists; it must be
+    asked for before anything in the process has loaded the library."""
     global _lib, _fastcall, NATIVE_AVAILABLE
     with _lock:
-        if NATIVE_AVAILABLE is not None:
+        if NATIVE_AVAILABLE is not None and not force_rebuild:
             return NATIVE_AVAILABLE
-        if not _build():
+        if force_rebuild and _lib is not None:
+            raise RuntimeError("native library already loaded; a forced "
+                               "rebuild would not take effect")
+        if not _build(force=force_rebuild):
             NATIVE_AVAILABLE = False
             return False
         try:
@@ -199,10 +214,15 @@ def ensure_built() -> bool:
             _lib = lib
             NATIVE_AVAILABLE = True
             if not os.environ.get("H263_TPU_NO_FASTCALL"):
-                _fastcall = _build_fastcall()
+                _fastcall = _build_fastcall(force=force_rebuild)
         except Exception:
             NATIVE_AVAILABLE = False
         return NATIVE_AVAILABLE
+
+
+def fastcall_loaded() -> bool:
+    """True once the CPython marshalling helper is loaded."""
+    return _fastcall is not None
 
 
 def _mv_ranges(picture: Picture, width: int, height: int) -> tuple[int, int]:

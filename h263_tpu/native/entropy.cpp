@@ -1,9 +1,9 @@
-// TPU-native H.263 host entropy front-end (C++).
+// H.263 host entropy front-end (C++).
 //
 // The serial stage of the decode pipeline: VLC entropy decode, MV
 // prediction, quantizer scan, inverse RLE / dezigzag / dequantization —
 // everything that cannot batch — emitting the dense per-frame tensors the
-// TPU reconstruction program consumes.  Symbol-for-symbol identical to the
+// device reconstruction program consumes.  Symbol-for-symbol identical to the
 // Python front-end (h263_tpu/parser/frame.py), which is itself
 // behavior-parity with the reference decoder's macroblock loop
 // (h263-rs: decoder/state.rs:193-417, parser/macroblock.rs, parser/block.rs,

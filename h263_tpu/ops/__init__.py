@@ -1,8 +1,7 @@
-"""Reconstruction ops: golden numpy oracles + JAX/Pallas TPU kernels.
+"""Reconstruction ops: golden numpy oracles + jittable JAX versions.
 
-Every op ships in (up to) three forms:
+Every op ships in two forms:
   * golden_*  — numpy, scalar-faithful to the reference's arithmetic
                 (including f32 accumulation order); the parity oracle.
   * *_jnp     — jittable jnp implementation, bit-exact to golden.
-  * *_pallas  — hand-written Pallas TPU kernel for the hot path.
 """

@@ -10,8 +10,8 @@ compounds over a GOP.  That pins down three things:
    last ULP).  Transcribed verbatim below as numeric data.
 2. Accumulation order: each 1-D IDCT accumulates over frequency 0..7 in
    order, in f32 (idct.rs:52-65).  We reproduce it as 8 sequential
-   elementwise multiply-adds (VPU ops) rather than an MXU matmul, because a
-   systolic-array matmul does not guarantee that addition order.
+   elementwise multiply-adds rather than a matmul: any dot product
+   reassociates the sum, and an f32 dot on a GPU may run in TF32.
 3. Rounding: out = clamp(trunc(v/4 + signum(v)*0.5), -256, 255), then
    clamp(out + prediction, 0, 255) (idct.rs:119-131, 190-195).
 
@@ -115,6 +115,55 @@ def golden_idct_block(coeffs: np.ndarray, block_class: int) -> np.ndarray:
     return _round_clip(stage_b).T
 
 
+def golden_classes(dense_blocks: np.ndarray) -> np.ndarray:
+    """Numpy twin of derive_classes_jnp: int8 [...] from int16 [..., 64]."""
+    nz = dense_blocks.reshape(*dense_blocks.shape[:-1], 8, 8) != 0
+    any_nz = nz.any(axis=(-1, -2))
+    off_row0 = nz[..., 1:, :].any(axis=(-1, -2))
+    off_col0 = nz[..., :, 1:].any(axis=(-1, -2))
+    cls = np.where(~any_nz, BLOCK_CLASS_ZERO,
+          np.where(~off_row0 & ~off_col0, BLOCK_CLASS_DC,
+          np.where(~off_col0, BLOCK_CLASS_VERT, BLOCK_CLASS_FULL)))
+    return cls.astype(np.int8)
+
+
+def golden_idct_dense(dense_blocks: np.ndarray) -> np.ndarray:
+    """golden_idct_block over every block of int16 [..., 64], vectorised.
+
+    Every numpy f32 operation rounds to f32 on its own (numpy never
+    contracts), and sums run in frequency order, so this equals the
+    per-block oracle exactly.  Returns int16 [..., 64]."""
+    lead = dense_blocks.shape[:-1]
+    flat = dense_blocks.reshape(-1, 8, 8)
+    cls = golden_classes(flat.reshape(-1, 64))
+    out = np.zeros(flat.shape, dtype=np.int16)
+    f32 = np.float32
+
+    def idct_last(x):
+        acc = x[..., 0:1] * BASIS_F32[0]
+        for f in range(1, 8):
+            acc = acc + x[..., f:f + 1] * BASIS_F32[f]
+        return acc
+
+    full = cls == BLOCK_CLASS_FULL
+    if full.any():
+        c = flat[full].astype(f32)
+        stage_b = idct_last(np.swapaxes(idct_last(c), -1, -2))
+        out[full] = _round_clip(np.swapaxes(stage_b, -1, -2))
+    vert = cls == BLOCK_CLASS_VERT
+    if vert.any():
+        w = idct_last(flat[vert][:, :, 0].astype(f32)) * B00
+        out[vert] = np.repeat(_round_clip(w)[:, :, None], 8, axis=2)
+    dc = cls == BLOCK_CLASS_DC
+    if dc.any():
+        d = flat[dc][:, 0, 0].astype(f32)
+        v = d * f32(0.5) / f32(4.0)
+        bias = np.where(d < 0, f32(-0.5), f32(0.5))
+        out[dc] = np.clip(np.trunc(v + bias), -256, 255).astype(
+            np.int16)[:, None, None]
+    return out.reshape(*lead, 64)
+
+
 def golden_idct_channel(coeffs: np.ndarray, classes: np.ndarray,
                         plane: np.ndarray) -> np.ndarray:
     """Whole-plane IDCT + residual add (idct.rs:82-201).
@@ -150,7 +199,7 @@ def idct_residual_jnp(coeffs, classes):
     """Clipped IDCT residuals for all blocks: int32 [..., nby, nbx, 8, 8].
 
     Bit-exact to golden_idct_block for every class.  The sequential f32
-    multiply-adds run on the VPU; XLA preserves IEEE semantics (no
+    multiply-adds are elementwise ops; XLA preserves IEEE semantics (no
     reassociation), so accumulation order matches the reference.
     """
     import jax.numpy as jnp
@@ -166,9 +215,10 @@ def idct_residual_jnp(coeffs, classes):
         # and diverging from the reference by 1 ulp — enough to flip the
         # trunc() at rounding boundaries (caught by the 60-frame soak
         # test).  HLO-level barriers cannot prevent this (it happens in the
-        # backend); the CPU test environment disables the fusion pass
-        # (tests/conftest.py) and the TPU backend's strict rounding is
-        # asserted on hardware by bench.py's regression check.
+        # backend).  XLA:CPU contracts inside fusions, so the CPU tests
+        # disable its fusion pass (tests/conftest.py).  XLA:GPU emits
+        # mul.rn.f32 / add.rn.f32, which ptxas never merges; chip_smoke.py
+        # and bench.py assert that on the card with the strict gate.
         acc = x[..., 0:1] * basis[0]
         for f in range(1, 8):
             acc = acc + x[..., f : f + 1] * basis[f]
@@ -202,6 +252,20 @@ def idct_residual_jnp(coeffs, classes):
           jnp.where(cls == BLOCK_CLASS_VERT, vert,
           jnp.where(cls == BLOCK_CLASS_DC, dcfull, 0)))
     return res
+
+
+def idct_residual_dense_jnp(dense_blocks):
+    """Clipped residuals of dense int16 [..., 64] blocks, as int16 [..., 64].
+
+    The same arithmetic reconstruct_from_dense runs (classes derived from
+    the nonzero pattern, then idct_residual_jnp), on the dense layout the
+    golden_idct_dense oracle takes."""
+    import jax.numpy as jnp
+
+    lead = dense_blocks.shape[:-1]
+    classes = derive_classes_jnp(dense_blocks)
+    res = idct_residual_jnp(dense_blocks.reshape(*lead, 8, 8), classes)
+    return res.reshape(*lead, 64).astype(jnp.int16)
 
 
 def derive_classes_jnp(dense_blocks):

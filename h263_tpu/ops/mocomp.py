@@ -7,7 +7,7 @@ Semantics (cpu/gather.rs):
     ((a+b+c+d+2)>>2, gather.rs:103-111)
   * INTRA macroblocks produce zeros (the IDCT adds onto nothing)
 
-The TPU formulation is per-pixel instead of per-block-copy: every output
+The device formulation is per-pixel instead of per-block-copy: every output
 pixel computes its own clamped source coordinate from its block's MV, which
 turns the reference's branchy block copies into one dense gather + integer
 blend — trivially parallel over (stream, y, x).

@@ -5,8 +5,8 @@ Parity with the reference `yuv` crate (yuv/src/bt601.rs): studio-swing
 replicated (nearest) rather than interpolated — "it's what Flash Player
 does" (bt601.rs:96-98).  Alpha is fixed 255.
 
-All arithmetic is exact int32, so any evaluation order is bit-exact; the TPU
-version is a pure elementwise VPU kernel.
+All arithmetic is exact int32, so any evaluation order is bit-exact; the device
+version is one fused elementwise program.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Multi-stream parallel decode: the framework's primary scaling axis.
 
-The reference is single-threaded per stream; the TPU-native design instead
+The reference is single-threaded per stream; the batched design instead
 batches N concurrent streams into one XLA program over a [stream, ...] axis
 (SURVEY.md §2.4), and shards that axis across a device mesh — embarrassingly
 parallel, so XLA inserts no cross-chip collectives.

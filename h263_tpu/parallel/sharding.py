@@ -3,7 +3,7 @@
 Streams are independent, so the only sharded axis is `stream`; every tensor
 in the reconstruction program carries it as the leading dimension.  With
 NamedSharding over a 1-D mesh, XLA compiles one SPMD program per chip with
-zero inter-chip communication — scaling is linear over ICI and DCN alike.
+zero inter-device communication.
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ def make_stream_mesh(devices=None):
     return Mesh(np.asarray(devices), ("stream",))
 
 
-def shard_reconstruct_fn(mesh, h: int, w: int, packed=False, pallas="off",
-                         mv_full=False):
+def shard_reconstruct_fn(mesh, h: int, w: int, packed=False, mv_full=False):
     """A jitted, stream-sharded batched reconstruction program.
 
     All inputs/outputs are sharded on their leading stream axis; the batch
@@ -33,8 +32,6 @@ def shard_reconstruct_fn(mesh, h: int, w: int, packed=False, pallas="off",
     split transport (int32 positions + int16 values), packed="d24f" the
     fused single-leaf transport (the production default — `mv_full`
     selects the slim/full MV row layout), False the dense one.
-    `pallas` selects the kernel backend for the packed programs ("off",
-    "tpu", or "interpret"), matching BatchedStreamDecoder.
     """
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -49,18 +46,18 @@ def shard_reconstruct_fn(mesh, h: int, w: int, packed=False, pallas="off",
 
     stream_sharding = NamedSharding(mesh, P("stream"))
     if packed == "split":
-        fn = functools.partial(reconstruct_frame_packed_split, pallas=pallas)
+        fn = reconstruct_frame_packed_split
         n_in = 7
     elif packed == "d24f":
         fn = functools.partial(
             reconstruct_frame_packed_d24_fused, mv_full=mv_full,
-            mbh=-(-h // 16), mbw=-(-w // 16), pallas=pallas)
+            mbh=-(-h // 16), mbw=-(-w // 16))
         n_in = 4
     elif packed == "d24":
-        fn = functools.partial(reconstruct_frame_packed_d24, pallas=pallas)
+        fn = reconstruct_frame_packed_d24
         n_in = 6
     elif packed is True or packed == "u32":
-        fn = functools.partial(reconstruct_frame_packed_u32, pallas=pallas)
+        fn = reconstruct_frame_packed_u32
         n_in = 6
     elif packed is False or packed is None:
         fn, n_in = reconstruct_frame_batched, 11
@@ -76,25 +73,34 @@ def shard_reconstruct_fn(mesh, h: int, w: int, packed=False, pallas="off",
 
 
 def shard_device_frontend_fn(mesh, h: int, w: int, tape_len: int,
-                             pallas="off", harness="xla", unroll: int = 4):
+                             harness="xla", unroll: int = 4):
     """A jitted, stream-sharded device-front-end step program.
 
     The raw-bytes-in, planes-out step (parallel/device_batch.py): payload
     words -> lockstep VLC automaton -> tape scatters -> dense tensors ->
     reconstruction.  Every input/output (including the uint8 payload leaf
     and the int32 meta vectors) is sharded on the stream axis, so each
-    chip entropy-decodes only its own streams — the parse itself scales
+    device entropy-decodes only its own streams — the parse itself scales
     over the mesh, unlike the host front-end where the parse is a
     host-side serial stage.
+
+    The step runs under shard_map, so each device's automaton loop stops
+    when ITS lanes are done.  Partitioned by jit alone, the loop's
+    any-lane-still-running predicate becomes an all-reduce across the
+    mesh on every iteration.
     """
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from .device_batch import make_whole_step
 
-    stream_sharding = NamedSharding(mesh, P("stream"))
+    spec = P("stream")
+    stream_sharding = NamedSharding(mesh, spec)
+    step = jax.shard_map(make_whole_step(h, w, tape_len, harness, unroll),
+                         mesh=mesh, in_specs=(spec,) * 9,
+                         out_specs=(spec,) * 4, check_vma=False)
     return jax.jit(
-        make_whole_step(h, w, tape_len, pallas, harness, unroll),
+        step,
         in_shardings=(stream_sharding,) * 9,
         out_shardings=(stream_sharding,) * 4,
     )

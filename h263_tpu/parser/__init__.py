@@ -2,7 +2,7 @@
 
 Parsing is inherently bit-serial (every VLC's position depends on all prior
 symbols), so it runs on the host; the output is dense per-frame tensors that
-feed the batched TPU reconstruction kernels (see SURVEY.md §1/§3 seam).
+feed the batched device reconstruction kernels (see SURVEY.md §1/§3 seam).
 """
 
 from .picture import decode_picture, decode_gob

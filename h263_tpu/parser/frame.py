@@ -4,7 +4,7 @@ Drains one picture's macroblock layer into dense, dependency-free numpy
 tensors — the host/device seam of the framework.  This corresponds to the
 macroblock loop of H263State::decode_next_picture (state.rs:178-427) plus
 inverse RLE / dezigzag / dequantization (cpu/rle.rs), with the serial MV and
-quantizer recurrences fully resolved so every downstream TPU kernel is
+quantizer recurrences fully resolved so every downstream device kernel is
 trivially parallel over macroblocks.
 
 Output layout (FrameData):
@@ -49,7 +49,7 @@ from .picture import decode_gob
 
 @dataclass
 class FrameData:
-    """Dense per-frame tensors ready for the TPU reconstruction program."""
+    """Dense per-frame tensors ready for the device reconstruction program."""
 
     picture: Picture
     width: int

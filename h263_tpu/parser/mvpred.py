@@ -2,7 +2,7 @@
 
 This is the left/top recurrence that makes entropy decode serial (see
 SURVEY.md §2.4); it is resolved here on the host so the dense MV tensor
-handed to the TPU kernels is dependency-free.
+handed to the device kernels is dependency-free.
 
 Parity with h263/src/decoder/cpu/mvd_pred.rs.
 """

@@ -1,4 +1,4 @@
-"""Core bitstream types for the TPU-native H.263 (Sorenson Spark) decoder.
+"""Core bitstream types for the batched H.263 (Sorenson Spark) decoder.
 
 This module models the semantic content of an H.263 (01/2005) picture header
 and macroblock layer as plain Python dataclasses / IntFlags.  It corresponds to

@@ -601,7 +601,7 @@ class TestDeviceFrontendDecoder:
 
     def test_retired_pallas_harness_rejected(self):
         """The Pallas parse harness was retired in round 5 (it never
-        lowered through Mosaic — docs/retired/parse_pallas.py); asking
+        lowered through Mosaic: the per-lane VLC-table gathers); asking
         for it must fail loudly at construction, never silently demote."""
         from h263_tpu.parallel.device_batch import DeviceFrontendDecoder
 

@@ -6,8 +6,12 @@ import pytest
 
 from h263_tpu.ops.deblock import deblock_jnp, golden_deblock
 from h263_tpu.ops.idct import (
+    derive_classes_jnp,
+    golden_classes,
     golden_idct_block,
     golden_idct_channel,
+    golden_idct_dense,
+    idct_residual_dense_jnp,
     idct_residual_jnp,
 )
 from h263_tpu.ops.mocomp import (
@@ -214,9 +218,79 @@ class TestFmaContraction:
             jnp.asarray(c)[None], jnp.asarray(k)[None])
         assert np.asarray(vm)[0, 0, 0, 0, 2] == 28
 
-    def test_pallas_interpret(self):
-        from h263_tpu.ops.idct_pallas import idct_residual_pallas
+    def test_dense_path(self):
+        """The dense-layout route reconstruct_from_dense and chip_smoke
+        take (classes derived on device)."""
+        import jax
 
-        got = idct_residual_pallas(self._block().reshape(1, 64),
-                                   interpret=True)
+        got = jax.jit(idct_residual_dense_jnp)(self._block().reshape(1, 64))
         assert np.asarray(got)[0].reshape(8, 8)[0, 2] == 28
+
+    def test_golden_dense(self):
+        got = golden_idct_dense(self._block().reshape(1, 64))
+        assert got[0].reshape(8, 8)[0, 2] == 28
+
+
+def _mixed_dense(n, seed):
+    """int16 [n, 64] blocks of every class, with sparse and dense FULL."""
+    r = np.random.default_rng(seed)
+    d = np.zeros((n, 8, 8), dtype=np.int16)
+    kind = r.integers(0, 4, n)
+    for i in range(n):
+        if kind[i] == BLOCK_CLASS_DC:
+            d[i, 0, 0] = r.integers(-2048, 2048) or 1
+        elif kind[i] == BLOCK_CLASS_VERT:
+            d[i, :, 0] = r.integers(-2048, 2048, 8)
+            d[i, 1, 0] = d[i, 1, 0] or 5
+        elif kind[i] == BLOCK_CLASS_FULL:
+            m = r.random((8, 8)) < r.random()
+            m[0, 1] = True
+            d[i][m] = r.integers(-2048, 2048, int(m.sum()))
+            d[i, 0, 1] = d[i, 0, 1] or -7
+    return d.reshape(n, 64)
+
+
+class TestIdctDense:
+    """The dense-layout IDCT route (int16 [..., 64] in, int16 out) and its
+    vectorised numpy oracle."""
+
+    def test_golden_dense_matches_per_block_oracle(self):
+        d = _mixed_dense(200, 5)
+        cls = golden_classes(d)
+        want = np.stack([golden_idct_block(
+            b.reshape(8, 8).astype(np.float32), int(c))
+            for b, c in zip(d, cls)]).reshape(200, 64)
+        np.testing.assert_array_equal(golden_idct_dense(d), want)
+
+    def test_golden_classes_match_device_derivation(self):
+        d = _mixed_dense(300, 6)
+        np.testing.assert_array_equal(
+            golden_classes(d), np.asarray(derive_classes_jnp(d)))
+
+    @pytest.mark.parametrize("block_class", [
+        BLOCK_CLASS_ZERO, BLOCK_CLASS_DC, BLOCK_CLASS_VERT, BLOCK_CLASS_FULL])
+    def test_each_class_matches_golden(self, block_class):
+        d = _mixed_dense(400, 7)
+        d = d[golden_classes(d) == block_class]
+        assert len(d) > 20
+        got = np.asarray(idct_residual_dense_jnp(d))
+        np.testing.assert_array_equal(got, golden_idct_dense(d))
+
+    @pytest.mark.parametrize("lead", [(1,), (7,), (3, 5), (2, 1, 4)])
+    def test_leading_axes(self, lead):
+        n = int(np.prod(lead))
+        d = _mixed_dense(n, 8 + n)
+        got = np.asarray(idct_residual_dense_jnp(d.reshape(*lead, 64)))
+        assert got.shape == (*lead, 64) and got.dtype == np.int16
+        np.testing.assert_array_equal(got.reshape(n, 64),
+                                      golden_idct_dense(d))
+
+    def test_extremes_clip(self):
+        d = np.zeros((4, 64), dtype=np.int16)
+        d[0, :] = 2047
+        d[1, :] = -2048
+        d[2, ::9] = 2047
+        d[3, 0] = -2048
+        got = np.asarray(idct_residual_dense_jnp(d))
+        assert got.min() >= -256 and got.max() <= 255
+        np.testing.assert_array_equal(got, golden_idct_dense(d))

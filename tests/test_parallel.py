@@ -403,10 +403,9 @@ class TestShardedPresent:
             jax.numpy.asarray(apply)))
         np.testing.assert_array_equal(a, b)
 
-    def test_packed_pallas_interpret_sharded(self):
-        """The packed-u32 program with Pallas-interpret kernels (the
-        dryrun_multichip configuration) matches the XLA-ops program over
-        the mesh."""
+    def test_packed_u32_sharded(self):
+        """The stream-sharded packed-u32 program matches the unsharded one
+        over the mesh."""
         import jax
         if len(jax.devices()) < 2:
             pytest.skip("needs a multi-device mesh")
@@ -428,7 +427,7 @@ class TestShardedPresent:
         refc = rng.integers(0, 255, (S, H // 2, W // 2)).astype(np.uint8)
 
         mesh = make_stream_mesh()
-        fn = shard_reconstruct_fn(mesh, H, W, packed=True, pallas="interpret")
+        fn = shard_reconstruct_fn(mesh, H, W, packed=True)
         a = fn(u32, mvs, inter, ref, refc, refc)
         b = reconstruct_frame_packed_u32(u32, mvs, inter, ref, refc, refc)
         for x, yv in zip(a, b):
@@ -687,7 +686,7 @@ class TestDelta24Transport:
 
 class TestHostBufferReuseSafety:
     """The transport hands reused ping-pong host buffers to jax.device_put,
-    which may read them asynchronously (TPU) or alias them outright (CPU
+    which may read them asynchronously (GPU) or alias them outright (CPU
     zero-copy).  Reusing a buffer before the consuming step executed
     corrupted that step's input — observed as nondeterministic decodes
     whenever several steps queued up behind a slow compile with no

@@ -6,6 +6,7 @@ import numpy as np
 
 from h263_tpu import DecoderOption, H263Decoder, PictureTypeCode
 from h263_tpu.parallel import BatchedStreamDecoder
+from h263_tpu.parallel.device_batch import DeviceFrontendDecoder
 from h263_tpu.testing.encoder import MBSpec, encode_sorenson_picture
 
 SORENSON = DecoderOption.SORENSON_SPARK_BITSTREAM
@@ -74,7 +75,7 @@ def test_60_frame_drift_all_paths():
     d_np = H263Decoder(SORENSON, backend="numpy")
     d_jx = H263Decoder(SORENSON, backend="jax")
     d_b = BatchedStreamDecoder(1, 48, 48, SORENSON)
-    d_p = BatchedStreamDecoder(1, 48, 48, SORENSON, pallas="interpret")
+    d_p = DeviceFrontendDecoder(1, 48, 48, SORENSON)
 
     for t, buf in enumerate(frames):
         pn = d_np.decode_next_picture(buf)
@@ -87,7 +88,7 @@ def test_60_frame_drift_all_paths():
         np.testing.assert_array_equal(np.asarray(yb)[0], ref,
                                       err_msg=f"batched drift at frame {t}")
         np.testing.assert_array_equal(np.asarray(yp)[0], ref,
-                                      err_msg=f"pallas drift at frame {t}")
+                                      err_msg=f"devfe drift at frame {t}")
         np.testing.assert_array_equal(np.asarray(cbb)[0], pn.as_chroma_b(),
                                       err_msg=f"chroma drift at frame {t}")
 

@@ -1,12 +1,11 @@
-"""Instrument the pipelined (submit_step) path vs sequential on hardware.
+"""Instrument the pipelined (submit_step) path vs sequential on a device.
 
-VERDICT.md round 2 weak #3: pipelined mode lost ~5% to sequential in both
-rounds' artifacts despite both stages releasing the GIL.  This tool measures
-where the overlap is lost: per-step wall on the submitter thread, the
+Both stages release the GIL, so pipelining should overlap them; this tool
+measures where the overlap is lost: per-step wall on the submitter thread, the
 worker-side transfer/dispatch stage times, and the submitter's waits
 (buffer-rotation future wait + in_flight reclaim).
 
-Usage (real TPU):   python tools/prof_pipeline.py --streams 256 --frames 24
+Usage:   python tools/prof_pipeline.py --streams 256 --frames 24
 """
 
 from __future__ import annotations
@@ -69,8 +68,8 @@ def main():
                   f"min={v['min_ms']:7.3f} max={v['max_ms']:8.3f} "
                   f"total={v['total_s']*1e3:9.1f} ms", file=sys.stderr)
 
-    # Interleave A/B passes: seq, pipe, seq, pipe ... (box drifts between
-    # minutes; only order-balanced comparisons mean anything, CLAUDE.md).
+    # Interleave A/B passes: seq, pipe, seq, pipe ... (the host drifts
+    # between minutes; only order-balanced comparisons mean anything).
     for p in range(args.passes):
         # -- sequential pass --
         y, _, _ = dec.decode_step(lists[0]); y, _, _ = dec.decode_step(lists[1])
